@@ -1,10 +1,11 @@
-"""kaldi_tpu — a TPU-native speech recognition framework.
+"""kaldi_tpu — a speech recognition framework in JAX.
 
 A from-scratch re-design of the Kaldi ASR toolkit (reference:
-chenzhehuai/kaldi) for TPU hardware: feature extraction, GMM and
+chenzhehuai/kaldi) for accelerators: feature extraction, GMM and
 neural acoustic models, WFST graph compilation, token-passing Viterbi
-beam-search decoding with lattice generation — expressed as JAX/XLA/
-Pallas programs over device meshes rather than C++/CUDA kernels.
+beam-search decoding with lattice generation — expressed as JAX/XLA
+programs over device meshes rather than C++/CUDA kernels.  Its
+accelerator is an NVIDIA GPU (H100).
 
 Layer map (mirrors reference SURVEY.md §1, collapsed):
 

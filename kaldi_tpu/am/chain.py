@@ -6,7 +6,7 @@ chain-denominator.h (DenominatorComputation with leaky_hmm_coefficient),
 chain-supervision.h (Supervision), and the recipe-side phone LM
 estimation (chainbin/chain-est-phone-lm.cc).
 
-TPU-first design: the denominator forward recursion is a log-space
+Design: the denominator forward recursion is a log-space
 lax.scan over frames with per-arc gathers and segment-logsumexp
 recombination; gradients (the forward-backward posteriors) come from
 jax.grad differentiating through the forward pass — d logZ / d score =
@@ -338,7 +338,7 @@ def _make_den_graph_biphone(lm: PhoneLm, tree, topo,
     LM states with history length ≥ 2 determine their left phone
     (hist[-2]) — only backoff states (history ≤ 1) split per arriving
     left context, so the expansion adds at most ~|phones|² states over
-    the phone-LM state count and the dense MXU recursion path in
+    the phone-LM state count and the dense matmul recursion path in
     denominator_logprob is unchanged.  Entry pdfs stay a function of
     the DESTINATION state (the dense path's requirement): the arc
     (g, l) --x--> (g', l'=center(g)) enters instance x with window
@@ -482,16 +482,15 @@ def denominator_logprob(den: DenominatorGraph, scores: jnp.ndarray,
     Returns (B,) log-probs.  Differentiable; wrap calls in
     jax.value_and_grad.
 
-    TPU-first recursion: a chain den graph's arc pdf is a function of
-    the DESTINATION state (entry arcs into d emit d's forward pdf,
+    Recursion: a chain den graph's arc pdf is a function of the
+    DESTINATION state (entry arcs into d emit d's forward pdf,
     self-loops d's self pdf), so the per-frame expansion factorizes
     into one dense (B,S)×(S,S) matmul over the entry-transition
-    matrix plus an elementwise self-loop term — MXU work instead of
-    A-sized scatters (xplane-measured on v5e at S=1553/A=65k: the
-    scatter formulation ran ~3.7 ms/frame and serialized the whole
-    training step; the dense path is ~µs/frame).  Above
-    ``dense_state_limit`` states the (S,S) matrix outgrows HBM sanity
-    and the scatter path is used.
+    matrix plus an elementwise self-loop term — matrix-unit work
+    instead of A-sized scatters (the scatter formulation is kept as
+    the oracle; their relative cost on the GPU is unmeasured).  Above
+    ``dense_state_limit`` states the (S,S) matrix outgrows device
+    memory sanity and the scatter path is used.
     """
     S = den.num_states
     src = jnp.asarray(den.src)
@@ -572,14 +571,12 @@ def denominator_logprob(den: DenominatorGraph, scores: jnp.ndarray,
         l_self = jnp.asarray(l_self_np, jnp.float32)
 
     if use_dense:
-        # (measured alternatives at B=32/S=1553 on v5e, bf16 model:
-        # per-frame in-scan gathers 10.5 ms/step → hoisted (B,T,S)
-        # gathers 8.6 ms/step; scan unroll=4/8 no change; the
+        # (alternatives: per-frame in-scan gathers instead of the
+        # hoisted (B,T,S) gathers, scan unrolling, and the
         # reference-style LINEAR-space rescaled recursion — one
-        # multiply + MXU matmul + normalize per frame — also 8.9
-        # ms/step: past the hoist, the step is bound by the (B,S)
-        # recurrent dependency itself, not by fusion count or
-        # launches, so the log-space form is kept for its numerics.)
+        # multiply + matmul + normalize per frame.  The step is bound
+        # by the (B,S) recurrent dependency, so the log-space form is
+        # kept for its numerics; the ranking is unmeasured on the GPU.)
         # NO jax.checkpoint here: the scan's stored carries are only
         # T×(B,S) ≈ 10 MB at bench shapes, and rematerializing the
         # forward in the backward pass re-runs the whole latency-bound
@@ -636,6 +633,49 @@ def denominator_logprob(den: DenominatorGraph, scores: jnp.ndarray,
     (alphaT, corr), _ = jax.lax.scan(scan_step, (alpha0, jnp.zeros(B)),
                                      xs)
     return corr + jax.scipy.special.logsumexp(alphaT + final[None, :], axis=1)
+
+
+def numpy_den_forward(den: DenominatorGraph, scores: np.ndarray,
+                      ) -> np.ndarray:
+    """Float64 NumPy forward of the denominator HMM — the plain
+    reference denominator_logprob is checked against.  Arc by arc: each
+    arc adds its own weight and its own pdf's score (no factorization
+    by destination state); frame 0 allows both a state's self-loop pdf
+    and its entry pdf, as denominator_logprob does.  (B, T, P) scores →
+    (B,) log Z, no leaky HMM."""
+    scores = np.asarray(scores, np.float64)
+    B, T, _ = scores.shape
+    S = den.num_states
+    src = np.asarray(den.src)
+    dst = np.asarray(den.dst)
+    pdf = np.asarray(den.pdf)
+    logw = np.asarray(den.logw, np.float64)
+    if den.state_self_pdf is not None:
+        self_pdf = np.asarray(den.state_self_pdf)
+        entry_pdf = np.asarray(den.state_entry_pdf)
+    else:
+        self_pdf = np.zeros(S, np.int64)
+        entry_pdf = np.zeros(S, np.int64)
+        loops = src == dst
+        self_pdf[src[loops]] = pdf[loops]
+        entry_pdf[dst[~loops]] = pdf[~loops]
+    out = np.zeros(B)
+    for b in range(B):
+        alpha = np.asarray(den.initial, np.float64) + np.logaddexp(
+            scores[b, 0, self_pdf], scores[b, 0, entry_pdf])
+        for t in range(1, T):
+            contrib = alpha[src] + logw + scores[b, t, pdf]
+            m = np.full(S, -np.inf)
+            np.maximum.at(m, dst, contrib)
+            safe = np.where(np.isfinite(m), m, 0.0)
+            tot = np.zeros(S)
+            np.add.at(tot, dst, np.exp(contrib - safe[dst]))
+            with np.errstate(divide="ignore"):
+                alpha = np.where(np.isfinite(m), safe + np.log(tot),
+                                 -np.inf)
+        out[b] = np.logaddexp.reduce(alpha + np.asarray(den.final,
+                                                        np.float64))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ a single forced alignment: every lattice path is an allowed phone
 sequence, and each phone's start/end may move within ±tolerance frames
 of its lattice time (ProtoSupervision → Supervision FST).
 
-TPU-first encoding: the supervision FSA stays ARC-synchronous — trellis
+Encoding: the supervision FSA stays ARC-synchronous — trellis
 nodes are lattice phone arcs (being "inside" that phone), and the time
 tolerance becomes a per-frame mask computed from each state's boundary
 frame, so the whole forward is one lax.scan of

@@ -8,8 +8,8 @@ feature vector as a (height, filters) image column and convolves over
 `conv-relu-batchnorm-layer` xconfig lines in front of the TDNN-F
 trunk, optionally downsampling height (height-subsample-out).
 
-TPU-first: the whole layer is one `lax.conv_general_dilated` — XLA
-lowers it onto the MXU directly, replacing the reference's im2row +
+Design: the whole layer is one `lax.conv_general_dilated` — XLA
+lowers it onto the matrix units directly, replacing the reference's im2row +
 GEMM expansion (ConvolutionComputation::ConvolveForward).  Time taps
 use SAME-style zero padding (the reference zero-pads required context
 at utterance edges); height taps pad explicitly per the requested

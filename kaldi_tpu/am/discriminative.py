@@ -9,7 +9,7 @@ src/lat/lattice-functions.h LatticeForwardBackward{,Mpe}Variants):
   sMBR objf = E_den[frame accuracy]
 with gradients wrt the per-frame pdf log-likelihood matrix.
 
-TPU-native redesign: the denominator lattice (from decoding training
+Redesign: the denominator lattice (from decoding training
 data with a weak LM) is converted once on host into a TIME-SYNCHRONOUS
 dense form — states bucketed by frame, arcs padded to fixed width —
 then both objectives are a single `lax.scan` over frames:

@@ -7,7 +7,7 @@ train_full_ubm.sh).
 
 Device layout: per-pdf tensors (P, M, D, D) with precomputed Cholesky
 inverses; log-likelihoods batch as einsums — the quadratic form
-xᵀ Σ⁻¹ x is one (T,D)·(M,D,D) contraction on the MXU.
+xᵀ Σ⁻¹ x is one (T,D)·(M,D,D) contraction on the matrix units.
 """
 
 from __future__ import annotations

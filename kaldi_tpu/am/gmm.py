@@ -4,7 +4,7 @@ Parity targets: src/gmm/diag-gmm.h (DiagGmm), am-diag-gmm.h (AmDiagGmm),
 mle-diag-gmm.h (AccumDiagGmm, MleDiagGmmUpdate), and the flat-start /
 mixing-up flow of gmm-init-mono / gmm-mixup.
 
-TPU-first design: the whole acoustic model is three dense tensors
+Design: the whole acoustic model is three dense tensors
 padded to a common number of mixture components
 
     gconsts        (P, M)     log w − ½(D·log2π + Σ log σ² + Σ μ²/σ²)
@@ -12,7 +12,7 @@ padded to a common number of mixture components
     inv_vars       (P, M, D)  1/σ²
 
 so per-utterance log-likelihoods for ALL pdfs are two matmuls plus a
-logsumexp — `loglikes = x²·(−½/σ²) + x·(μ/σ²) + gconst` — an MXU-shaped
+logsumexp — `loglikes = x²·(−½/σ²) + x·(μ/σ²) + gconst` — an matmul-shaped
 einsum, replacing the reference's per-(frame,pdf) virtual
 DecodableAmDiagGmmScaled::LogLikelihood calls (the HOT spot of §3.3).
 Unused mixture slots carry gconst = −inf and vanish in the logsumexp.
@@ -153,7 +153,7 @@ def _loglikes_jit(x, gconst, mean_invvar, inv_var):
     P, M, D = mean_invvar.shape
     a = mean_invvar.reshape(P * M, D)
     b = (-0.5 * inv_var).reshape(P * M, D)
-    quad = x @ a.T + (x * x) @ b.T                  # (T, P*M) — MXU matmuls
+    quad = x @ a.T + (x * x) @ b.T                  # (T, P*M) — matmuls
     comp = quad.reshape(-1, P, M) + gconst[None]
     return jax.scipy.special.logsumexp(comp, axis=2)
 

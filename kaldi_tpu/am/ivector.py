@@ -8,8 +8,7 @@ The extractor is the standard total-variability model over a diagonal
 UBM:  supervector offset  m_g(w) = M_g + T_g · w ,  w ~ N(0, I).
 Training is EM on Baum-Welch stats; extraction solves the posterior
 precision system — both expressed as batched einsums (the per-Gaussian
-loop of the reference becomes one (G, D, K) tensor contraction on the
-MXU).
+loop of the reference becomes one (G, D, K) tensor contraction).
 """
 
 from __future__ import annotations

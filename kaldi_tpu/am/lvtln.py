@@ -10,7 +10,7 @@ transform maximizes the per-speaker GMM auxiliary objective (including
 the +count*log|det A| Jacobian term) is selected, turning VTLN into a
 pick-one-of-N linear transform that needs no feature recomputation.
 
-TPU shape: selection scores every class in one batched pass — transform
+Shape: selection scores every class in one batched pass — transform
 all frames by all N matrices with a single (N,D,D)x(T,D) einsum, score
 with the model's batched loglike matmuls, and reduce with the posterior
 weights.  N is tiny (~20) so the whole search is a handful of matmuls.

@@ -6,7 +6,7 @@ machines trained layerwise by contrastive divergence (CD-1), then
 fine-tune the unrolled sigmoid DNN with frame cross-entropy (and sMBR
 sequence training — provided by am/discriminative.py here).
 
-TPU-first: CD-1 is three dense matmuls + elementwise sampling per
+Design: CD-1 is three dense matmuls + elementwise sampling per
 minibatch — one jitted update over the whole batch; layerwise
 pretraining is a Python loop over layers, each layer's forward pass
 materialized once (B, T, D) for the next.

@@ -2,7 +2,7 @@
 model averaging.
 
 Parity target: src/nnet2/ ("Dan's" first NN framework).  Its two
-distinguishing pieces, re-expressed TPU-first:
+distinguishing pieces, re-expressed as batched device programs:
 
 - **p-norm nonlinearity** (`PnormComponent` + `NormalizeComponent`,
   src/nnet2/nnet-component.h): dimension reduction by grouped p-norms
@@ -12,7 +12,7 @@ distinguishing pieces, re-expressed TPU-first:
 - **parallel SGD with periodic model averaging**
   (`steps/nnet2/train_pnorm_fast.sh` + nnet-am-average): N jobs train
   on disjoint data shards from a common start, and the iteration's
-  model is the parameter average.  The TPU framework's primary
+  model is the parameter average.  This framework's primary
   data-parallel path is synchronous psum-gradient SGD (pipelines/
   chain.py) — `train_parallel_averaging` reproduces the reference's
   averaging SEMANTICS for parity experiments, with each "job" a batch
@@ -145,7 +145,7 @@ def train_parallel_averaging(cfg: Nnet2Config,
 
     Returns (params, diagnostics).  Jobs are vmapped over a leading
     jobs axis — N independent SGD trajectories advance as one XLA
-    program per step, the TPU-native reading of run.pl's N processes."""
+    program per step, the single-program reading of run.pl's N processes."""
     import optax
     model = Nnet2Model(cfg)
     rng = jax.random.PRNGKey(seed)

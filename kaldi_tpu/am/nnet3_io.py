@@ -1,10 +1,10 @@
-"""nnet3 model-file (.mdl / .raw) reader, writer, and flax converter.
+"""nnet3 model-file (.mdl / .raw) reader, writer, and TdnnChain converter.
 
 Parity target: src/nnet3/nnet-nnet.cc Nnet::{Read,Write} and the
 component Read/Write methods in nnet-simple-component.cc — the format
 of the reference's `final.mdl` (TransitionModel + AmNnetSimple) and
 `final.raw` (bare Nnet), so upstream-trained TDNN-F weights can be
-loaded into the flax model (SURVEY.md §7.7: converter instead of
+loaded into the JAX model (SURVEY.md §7.7: converter instead of
 rebuilding the nnet3 compiler).
 
 Format (public nnet3 sources; round-trip-tested here, byte
@@ -278,12 +278,12 @@ def write_nnet3(f: BinaryIO, model: Nnet3Model) -> None:
 
 
 # ---------------------------------------------------------------------------
-# flax TdnnChain ↔ nnet3 component conversion
+# TdnnChain ↔ nnet3 component conversion
 # ---------------------------------------------------------------------------
 
 def _affine(name: str, kernel: np.ndarray, bias: np.ndarray
             ) -> Nnet3Component:
-    """flax Dense kernel is (in, out); nnet3 LinearParams is (out, in)."""
+    """A dense kernel here is (in, out); nnet3 LinearParams is (out, in)."""
     return Nnet3Component(name, "NaturalGradientAffineComponent", {
         "LearningRateFactor": _f32(1.0),
         "LearningRate": _f32(0.001),
@@ -325,7 +325,7 @@ def _relu(name: str, dim: int) -> Nnet3Component:
 
 
 def tdnn_to_nnet3(params, batch_stats, cfg) -> Nnet3Model:
-    """Export flax TdnnChain variables as an nnet3 component list
+    """Export TdnnChain variables as an nnet3 component list
     (nnet3-copy-compatible layout for the matching xconfig)."""
     p = params
     bs = batch_stats
@@ -363,7 +363,7 @@ def tdnn_to_nnet3(params, batch_stats, cfg) -> Nnet3Model:
 
 
 def nnet3_to_tdnn(model: Nnet3Model, cfg):
-    """Import an nnet3 TDNN-F component list into flax TdnnChain
+    """Import an nnet3 TDNN-F component list into TdnnChain
     variables (params, batch_stats)."""
     def aff(name):
         c = model.component(name)

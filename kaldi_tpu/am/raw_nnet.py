@@ -8,7 +8,7 @@ raw-nnet-copy, raw-nnet-info, raw-nnet-concat}.cc.  Raw nets are used
 upstream as feature-transform front-ends (e.g. the ivector-era
 "append" networks) and for surgery between frameworks.
 
-TPU-first redesign: a raw net is an ordered list of typed components,
+Redesign: a raw net is an ordered list of typed components,
 each a (type, params) pair; `forward` folds the stack with jnp ops
 (everything XLA-fusable; the stack is static so jit sees one graph).
 Component types:

@@ -13,7 +13,7 @@ term): W_i = K_i G_i⁻¹ with
   K_i  = Σ_m Σ_t γ_m(t)·x_i(t)/σ²_m,i · μ⁺_mᵀ
   G_i  = Σ_m γ_m        /σ²_m,i · μ⁺_m μ⁺_mᵀ.
 
-TPU-native shape: accumulation is one vectorized einsum pass over
+Shape: accumulation is one vectorized einsum pass over
 (T, M) posteriors (no per-frame loops); the tree walk is tiny host
 code.  Gaussian clustering uses 2-means splitting on means — the
 reference clusters with its own Clusterable machinery; the tree

@@ -11,7 +11,7 @@ Wire format: our core.io binary primitives (token + basic-type framing,
 with upstream .mdl files: the tree is embedded inside <TransitionModel>,
 there is no <Tuples>/<Triples> section, and GMMs are stored as batched
 <MAXMIX>/<MEANS>/<VARS> matrices rather than per-pdf <DiagGMM> blocks
-(a deliberate TPU-side layout — the (P, M, D) tensors load straight
+(a deliberate device-side layout — the (P, M, D) tensors load straight
 into the einsum scorer).  Every artifact between pipeline stages lives
 on disk exactly like the reference's stage contract (SURVEY.md §5
 checkpoint/resume row).  Flax/optax training state uses orbax instead
@@ -243,7 +243,7 @@ def read_mdl(path: str) -> Tuple[TransitionModel, AmDiagGmm]:
 # Generic nested-parameter serialization (token-framed pytrees) — used
 # by models without a fixed Kaldi file format in the reference era
 # (xvector nets, denominator graphs): the same Read/Write-per-class
-# philosophy of src/base/io-funcs.h applied to a flax param dict.
+# philosophy of src/base/io-funcs.h applied to a param dict.
 
 def write_pytree(f: BinaryIO, tree) -> None:
     """Nested dict of arrays/scalars, keys written sorted."""

@@ -12,7 +12,7 @@ mean by a per-speaker offset:
     w_jki = softmax_i(w_i·v_jk)       (w_i ∈ R^S, shared)
     p(x|j,s) = Σ_k c_jk Σ_i w_jki N(x; μ_jki^(s), Σ_i)
 
-TPU-first shape: everything is batched einsums —
+Shape: everything is batched einsums —
 - all substate means at once: μ = einsum('ids,jks->jkid', M, V)
 - per-frame loglikes over ALL (j, k, i): one quadratic-expansion
   contraction + logsumexp, like the diag-GMM path (am/gmm.py); the
@@ -108,7 +108,7 @@ class Sgmm2:
     def loglikes(self, feats: np.ndarray,
                  spk_u: Optional[np.ndarray] = None) -> jnp.ndarray:
         """(T, D) → (T, J) log p(x_t | j): quadratic expansion keeps it
-        batched matmuls + logsumexp (MXU-shaped).  ``spk_u`` applies
+        batched matmuls + logsumexp (matmul-shaped).  ``spk_u`` applies
         the speaker subspace by shifting each Gaussian's input."""
         x = jnp.asarray(feats, jnp.float32)            # (T, D)
         mu = jnp.asarray(self.means(), jnp.float32)    # (J, K, I, D)

@@ -7,14 +7,14 @@ writes its model in (`relu-batchnorm-layer`, `tdnnf-layer`,
 `output-layer`) with Descriptor inputs (`Append(-1,0,1)`,
 `Offset(tdnn1, -3)`, layer-name references).
 
-TPU-first redesign: the reference compiles xconfig → config →
+Redesign: the reference compiles xconfig → config →
 nnet3 computation graph executed by NnetComputer.  Here the parsed
 line list IS the model — `XconfigModel` is a flax module that
 interprets the lines at trace time, reusing the native layer
 implementations (TdnnFLayer, RestrictedAttentionLayer, LstmpLayer,
 StatisticsPooling); XLA replaces the nnet3 compiler (SURVEY.md §7.7).
 Descriptors become splice/concat of cached layer outputs — everything
-stays a dense (B, T, D) tensor pipeline for the MXU.
+stays a dense (B, T, D) tensor pipeline for the matrix units.
 
 Supported grammar (one layer per line, `#` comments):
     input name=<n> dim=<d>
@@ -39,18 +39,84 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from kaldi_tpu.core.logging import KaldiError, get_logger
-from kaldi_tpu.am.tdnn import (RestrictedAttentionLayer, TdnnFLayer,
-                               splice)
+from kaldi_tpu.am.tdnn import splice
 from kaldi_tpu.am.lstm import LstmpLayer
 from kaldi_tpu.am.xvector import StatisticsPooling
 
 log = get_logger(__name__)
+
+
+class TdnnFLayer(nn.Module):
+    """Factorized TDNN layer with bottleneck + bypass, as a flax module
+    for the xconfig interpreter (same computation and leaf names as
+    am/tdnn.TdnnFLayer, plus dropout)."""
+    dim: int
+    bottleneck: int
+    time_stride: int = 1            # context offset s
+    bypass_scale: float = 0.66
+    dropout: float = 0.0
+    dtype: Any = None
+
+    @nn.compact
+    def __call__(self, x, train: bool = False):
+        # factor 1: constrained (semi-orthogonal), context [t-s, t]
+        h = splice(x, (-self.time_stride, 0) if self.time_stride else (0,))
+        h = nn.Dense(self.bottleneck, use_bias=False, name="linear",
+                     dtype=self.dtype)(h)
+        # factor 2: context [t, t+s]
+        h = splice(h, (0, self.time_stride) if self.time_stride else (0,))
+        h = nn.Dense(self.dim, name="affine", dtype=self.dtype)(h)
+        h = nn.relu(h)
+        h = h.astype(jnp.float32)
+        h = nn.BatchNorm(use_running_average=not train, use_bias=False,
+                         use_scale=False, name="batchnorm")(h)
+        if self.dropout > 0.0 and train:
+            h = nn.Dropout(self.dropout, deterministic=not train)(h)
+        if x.shape[-1] == self.dim:
+            h = h + self.bypass_scale * x
+        return h
+
+
+class RestrictedAttentionLayer(nn.Module):
+    """Time-restricted self-attention (nnet-attention-component.h
+    RestrictedAttentionComponent): each frame attends to
+    [t − left_ctx, t + right_ctx] only — a banded attention mask, which
+    keeps the QKᵀ matmul dense while bounding the receptive field like
+    the reference."""
+    dim: int
+    num_heads: int = 4
+    left_ctx: int = 9
+    right_ctx: int = 9
+    bypass_scale: float = 0.66
+
+    @nn.compact
+    def __call__(self, x, train: bool = False):
+        B, T, D = x.shape
+        H = self.num_heads
+        dh = self.dim // H
+        q = nn.Dense(H * dh, name="query")(x).reshape(B, T, H, dh)
+        k = nn.Dense(H * dh, name="key")(x).reshape(B, T, H, dh)
+        v = nn.Dense(H * dh, name="value")(x).reshape(B, T, H, dh)
+        logits = jnp.einsum("bthd,bshd->bhts", q, k) / jnp.sqrt(dh)
+        ti = jnp.arange(T)[:, None]
+        si = jnp.arange(T)[None, :]
+        band = (si >= ti - self.left_ctx) & (si <= ti + self.right_ctx)
+        logits = jnp.where(band[None, None], logits, -1e30)
+        att = jax.nn.softmax(logits, axis=-1)
+        out = jnp.einsum("bhts,bshd->bthd", att, v).reshape(B, T, H * dh)
+        out = nn.Dense(self.dim, name="out")(out)
+        out = nn.BatchNorm(use_running_average=not train, use_bias=False,
+                           use_scale=False, name="batchnorm")(out)
+        if D == self.dim:
+            out = out + self.bypass_scale * x
+        return out
 
 LAYER_TYPES = (
     "input", "relu-batchnorm-layer", "relu-renorm-layer", "tdnnf-layer",

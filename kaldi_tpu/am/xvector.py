@@ -4,7 +4,7 @@
 Parity targets: the reference's StatisticsExtractionComponent /
 StatisticsPoolingComponent (src/nnet3/nnet-general-component.h) and the
 x-vector recipe built on them (egs/sre16/v2, steps/nnet3/xvector/ —
-nnet3-xvector-compute, nnet3-xvector-train).  TPU-first design: the
+nnet3-xvector-compute, nnet3-xvector-train).  Design: the
 whole net is a few dense matmuls over (B, T, D) batches; statistics
 pooling is one masked mean/std reduction over time — no Descriptor
 compilation, XLA fuses the reductions into the surrounding matmuls.

@@ -1,5 +1,5 @@
 """Eleventh bank of CLI tools: the fork's flagship batched GPU-pipeline
-binary re-expressed for TPU, SGMM2 acc/est split, lattice composition.
+binary re-expressed in JAX, SGMM2 acc/est split, lattice composition.
 
 Canonical shapes mirrored: cudadecoderbin/batched-wav-nnet3-cuda.cc
 (the fork's flagship: whole pipeline wav → features → nnet → WFST
@@ -24,7 +24,7 @@ log = get_logger(__name__)
 
 
 # ---------------------------------------------------------------------------
-# cudadecoderbin → the TPU batched pipeline
+# cudadecoderbin → the batched JAX pipeline
 # ---------------------------------------------------------------------------
 
 def _batched_wav_nnet3(argv):
@@ -117,7 +117,7 @@ def _batched_wav_nnet3(argv):
 
 
 tool("batched-wav-nnet3-cuda")(_batched_wav_nnet3)   # reference name
-tool("batched-wav-nnet3")(_batched_wav_nnet3)        # TPU spelling
+tool("batched-wav-nnet3")(_batched_wav_nnet3)        # short spelling
 
 
 # ---------------------------------------------------------------------------

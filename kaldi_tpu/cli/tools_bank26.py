@@ -409,7 +409,7 @@ def nnet_train_parallel_tool(argv):
     same start over disjoint minibatch shards, the result is the
     parameter average (nnet2bin/nnet-train-parallel.cc).  Workers are
     vmapped over a jobs axis — one XLA program advances all N
-    trajectories per step, the TPU reading of the thread pool."""
+    trajectories per step, the single-program reading of the thread pool."""
     import jax
     import jax.numpy as jnp
     import optax

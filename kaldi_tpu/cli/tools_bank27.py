@@ -371,7 +371,7 @@ def _est_fmllr_raw_core(am, lda: np.ndarray, utt_data, num_iters: int,
     """Estimate a raw-space affine transform W (Dr × (Dr+1)) maximizing
     Σ_t Σ_p γ_tp · loglike(LDA·(W·x̂_t))[p] + β·log|det W_sq|
     (the fmllr-raw.cc objective), by Adam ascent with jax autograd —
-    the TPU-native re-solve of the upstream row-by-row quadratic
+    the autograd re-solve of the upstream row-by-row quadratic
     optimization.  utt_data: list of (raw_feats (T, Dr), dense
     posterior (T, P)) pairs."""
     import jax

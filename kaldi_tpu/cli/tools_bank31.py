@@ -35,20 +35,18 @@ log = get_logger(__name__)
 
 @tool("cuda-gpu-available")
 def cuda_gpu_available_tool(argv):
-    """Report whether an accelerator backend is usable — the TPU role
-    of nnetbin/cuda-gpu-available.cc (recipes gate GPU stages on its
-    exit status).  Exit 0 when jax's default backend is not the CPU,
-    1 otherwise."""
+    """Report whether a CUDA GPU is usable (nnetbin/cuda-gpu-available.cc;
+    recipes gate GPU stages on its exit status).  Exit 0 when JAX's
+    default device is a GPU, 1 otherwise."""
     import jax
     po = ParseOptions("cuda-gpu-available")
     po.read(argv)
-    backend = jax.default_backend()
     devs = jax.devices()
-    log.info("cuda-gpu-available: backend=%s devices=%s", backend,
-             [str(d) for d in devs])
-    if backend == "cpu":
-        log.warning("cuda-gpu-available: no accelerator "
-                    "(CPU backend only)")
+    log.info("cuda-gpu-available: platform=%s devices=%s",
+             devs[0].platform, [str(d) for d in devs])
+    if devs[0].platform != "gpu":
+        log.warning("cuda-gpu-available: no GPU (platform %s)",
+                    devs[0].platform)
         return 1
     return 0
 
@@ -666,7 +664,7 @@ def nnet_train_discriminative_parallel_tool(argv):
 def nnet3_latgen_incremental_tool(argv):
     """nnet3 lattice decoding with chunked advance and incrementally
     finalized lattices (nnet3bin/nnet3-latgen-incremental.cc): the
-    TDNN scores the whole utterance in one MXU batch, then the online
+    TDNN scores the whole utterance in one matmul batch, then the online
     beam decoder consumes --chunk-frames at a time so decoder state
     stays bounded."""
     from kaldi_tpu.am.serialize import read_mdl

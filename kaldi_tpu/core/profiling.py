@@ -4,13 +4,21 @@ Parity target: src/cudamatrix/cu-device.h `CuDevice::PrintProfile`
 (per-kernel-tag accumulated time printed at exit when profiling is on)
 and the RTF prints of src/decoder/decoder-wrappers.cc.
 
-TPU-native design: wrap a region in `profile(...)` — it captures a
+Design: wrap a region in `profile(...)` — it captures a
 `jax.profiler` trace, then parses the trace's xplane protobuf DIRECTLY
-(raw wire format, no generated proto bindings or tensorboard deps,
-neither of which this runtime ships) and aggregates XLA op durations
-per op.  `print_profile` renders the top ops the way CuDevice prints
-kernel tags.  This is how every decoder-step optimization in
-decoder/beam.py was measured (sort/gather/scatter cost attribution).
+(raw wire format, no generated proto bindings or tensorboard deps)
+and aggregates device op durations per op.  `print_profile` renders
+the top ops the way CuDevice prints kernel tags.
+
+Trace layout: device planes are named ``/device:<KIND>:<n>``.  On a
+GPU each CUDA stream is one line of the device plane, named
+``Stream #<id>(<kinds>)`` (e.g. ``Stream #13(Compute)``), and its
+events are the kernels XLA launched: fusion names (``loop_add_fusion``,
+``sort_6_1``), library kernels (cuBLAS ``sm90_xmma_gemm_*``) and copies
+(``memcpy128``).  A backend whose device plane has a line named
+``XLA Ops`` carries the per-op events there, beside summary lines; only
+that line is read for such a plane.  Host planes (``/host:CPU``) hold
+Python and runtime threads and are not device time.
 
 xplane wire schema (tensorflow/profiler protos, stable since 2020):
   XSpace{planes=1} / XPlane{id=1,name=2,lines=3,event_metadata=4(map)}
@@ -26,11 +34,14 @@ import glob
 import os
 import tempfile
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from kaldi_tpu.core.logging import get_logger
 
 log = get_logger(__name__)
+
+DEVICE_PLANE_PREFIX = "/device:"
+OPS_LINE = "XLA Ops"
 
 
 # ---------------------------------------------------------------------------
@@ -129,23 +140,38 @@ class OpProfile:
         # plane name -> line name -> op name -> [total_ps, count]
         self.planes: Dict[str, Dict[str, Dict[str, List[int]]]] = {}
 
-    def ops(self, line_filter: str = "XLA Ops"
-            ) -> List[Tuple[str, float, int]]:
-        """(op name, total ms, count), device planes only, sorted by
-        descending total time."""
-        agg: Dict[str, List[int]] = defaultdict(lambda: [0, 0])
+    def _lines(self, line_filter: Optional[str]):
+        """(plane, line, ops) selected by line_filter: None = the device
+        op lines (see the module docstring), "" = every parsed line, any
+        other string = the lines whose name contains it."""
         for pname, lines in self.planes.items():
+            if line_filter is None:
+                if not pname.startswith(DEVICE_PLANE_PREFIX):
+                    continue
+                named = [l for l in lines if OPS_LINE in l]
+                for lname in (named or lines):
+                    yield pname, lname, lines[lname]
+                continue
             for lname, ops in lines.items():
                 if line_filter and line_filter not in lname:
                     continue
-                for op, (ps, cnt) in ops.items():
-                    agg[op][0] += ps
-                    agg[op][1] += cnt
+                yield pname, lname, ops
+
+    def ops(self, line_filter: Optional[str] = None
+            ) -> List[Tuple[str, float, int]]:
+        """(op name, total ms, count) over the lines line_filter
+        selects (default: device op lines), sorted by descending total
+        time."""
+        agg: Dict[str, List[int]] = defaultdict(lambda: [0, 0])
+        for _pname, _lname, ops in self._lines(line_filter):
+            for op, (ps, cnt) in ops.items():
+                agg[op][0] += ps
+                agg[op][1] += cnt
         out = [(op, ps / 1e9, cnt) for op, (ps, cnt) in agg.items()]
         out.sort(key=lambda t: -t[1])
         return out
 
-    def total_ms(self, line_filter: str = "XLA Ops") -> float:
+    def total_ms(self, line_filter: Optional[str] = None) -> float:
         return sum(ms for _, ms, _ in self.ops(line_filter))
 
 
@@ -158,8 +184,7 @@ def parse_xplane(path: str, device_only: bool = True) -> OpProfile:
         if fno != 1 or wt != 2:
             continue
         pname, lines, meta = _parse_plane(v)
-        if device_only and not any(
-                t in pname for t in ("TPU", "GPU", "/device:")):
+        if device_only and not pname.startswith(DEVICE_PLANE_PREFIX):
             continue
         plines = prof.planes.setdefault(pname, {})
         for lb in lines:
@@ -195,9 +220,9 @@ def profile(trace_dir: str = None):
             for p in sorted(glob.glob(
                     os.path.join(trace_dir, "**", "*.xplane.pb"),
                     recursive=True)):
-                # keep every plane; ops()/print_profile select device
-                # op lines by line name, so host-only (CPU) traces
-                # still yield a profile
+                # keep every plane; ops()/print_profile select the
+                # device op lines, and line_filter="" still reads
+                # host-only (CPU backend) traces
                 sub = parse_xplane(p, device_only=False)
                 merged.planes.update(sub.planes)
             result["prof"] = merged
@@ -208,7 +233,7 @@ def profile(trace_dir: str = None):
 
 
 def print_profile(prof: OpProfile, top: int = 20, min_frac: float = 0.002,
-                  line_filter: str = "XLA Ops") -> None:
+                  line_filter: Optional[str] = None) -> None:
     """Render the per-op table (CuDevice::PrintProfile format)."""
     ops = prof.ops(line_filter)
     tot = sum(ms for _, ms, _ in ops)

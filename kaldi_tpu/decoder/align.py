@@ -3,13 +3,13 @@
 Parity target: src/gmmbin/gmm-align-compiled.cc (FasterDecoder over a
 per-utterance training graph).  Training graphs are tiny (linear
 transcripts), so instead of beam-pruned token passing we run *exact*
-dense Viterbi with the same TPU-native formulation as decoder/dense.py:
+dense Viterbi with the same formulation as decoder/dense.py:
 arcs packed by DESTINATION state so recombination is a gather +
-min-reduce (no scatters — they serialize on TPU), the ε-closure a fixed
+min-reduce (no scatters), the ε-closure a fixed
 number of sweeps, and the backtrace a reverse lax.scan on device so
 only (T,)-sized tid arrays leave the chip.
 
-A whole minibatch of utterances aligns in one vmapped scan — the TPU
+A whole minibatch of utterances aligns in one vmapped scan — the device
 replacement for Kaldi's nj×utterance process fan-out (SURVEY.md §2.4).
 Graphs are passed as padded dense tensors (not closed-over constants)
 so ONE compilation per (S, A, E, T) bucket serves every utterance and

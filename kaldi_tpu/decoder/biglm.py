@@ -7,7 +7,7 @@ G_small⁻¹∘G_big (a deterministic-on-demand FST over big-LM histories),
 so the search effectively runs under the big LM without ever building
 its HCLG.
 
-TPU-first position: the framework's primary big-LM path is either
+Position: the framework's primary big-LM path is either
 (a) building the big HCLG directly in CSR form (fst/biglang.py — fast
 enough that the reference's reason for biglm decoding largely
 disappears) or (b) decoding small + pruned on-demand lattice rescoring

@@ -1,14 +1,15 @@
-"""Dense gather-based Viterbi beam decoder (the TPU fast path).
+"""Dense gather-based Viterbi beam decoder.
 
-The scatter-min recombination in decoder/beam.py lowers to serialized
-scatters on TPU (~10 ms/frame).  This decoder reformulates token
+A scatter-min token recombination lowers to scatters, which the
+decoders here avoid by design (their GPU cost is unmeasured; ROADMAP
+D2).  This decoder reformulates token
 recombination as a GATHER: arcs are packed by *destination* state
 (reverse adjacency, padded to the max in-degree), so
 
     alpha'[s] = min over incoming arcs a of
                 alpha[src(a)] + w(a) − scale·loglike[pdf(ilabel(a))]
 
-is a dense (S, Ain) gather + min-reduce — pure VPU work, no scatters,
+is a dense (S, Ain) gather + min-reduce — pure elementwise work, no scatters,
 no sorts, no top-k.  Beam pruning is a vector mask against the frame
 minimum.  This is exact Viterbi over the whole state space (max-active
 = S), the right regime for small/medium graphs where dense per-state

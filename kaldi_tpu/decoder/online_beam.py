@@ -76,8 +76,8 @@ class OnlineBeamDecoder:
         offline β-prune layout — per-frame (L, recw+1) chunk rows
         (with the device-only cost column) plus per-frame source-token
         costs — so finalize() can run the device β pass and fetch only
-        records the final lattice keeps (the finalize tail WAS the
-        record fetch; VERDICT r4 weak #6)."""
+        records the final lattice keeps (otherwise the finalize tail
+        is the record fetch)."""
         dec = self.dec
         dec.g = g
         active = jnp.arange(self.C) < n_valid

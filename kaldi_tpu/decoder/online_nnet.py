@@ -5,7 +5,7 @@ Parity target: src/nnet3/decodable-online-looped.h
 enough temporal context across chunks for online decoding.
 
 The reference compiles a 'looped' computation carrying recurrent state;
-a TDNN's state is just its finite receptive field, so the TPU-native
+a TDNN's state is just its finite receptive field, so the
 equivalent is context-buffered chunk scoring: keep `left_context`
 feature frames from the past, delay emission by `right_context` frames,
 and score each chunk with both attached.  Scores for emitted frames are

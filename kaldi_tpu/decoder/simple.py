@@ -2,7 +2,7 @@
 
 Parity target: src/decoder/simple-decoder.h (SimpleDecoder).  Exact
 Viterbi over the full state space with per-frame ε-closure; used by
-tests as the oracle for the vectorized TPU beam decoder, exactly as the
+tests as the oracle for the vectorized beam decoder, exactly as the
 reference validates FasterDecoder/LatticeFasterDecoder against
 SimpleDecoder on small graphs (SURVEY.md §4).
 """

@@ -4,11 +4,11 @@ Parity targets: src/feat/feature-mfcc.h (MfccComputer),
 feature-fbank.h (FbankComputer), feature-spectrogram.h, feature-plp.h
 (PlpComputer), src/feat/feature-common.h (OfflineFeatureTpl::Compute).
 
-TPU-first design: one utterance's frames form a dense
+Design: one utterance's frames form a dense
 (num_frames, padded_window_size) matrix; the whole pipeline
 (pre-emphasis → window → rFFT → |.|² → mel matmul → log → DCT matmul)
 is a single jitted function, fused by XLA, with the mel projection and
-DCT running on the MXU.  The reference loops frames one at a time
+DCT running on the matrix units.  The reference loops frames one at a time
 through a split-radix FFT (srfft.h); here all frames batch through
 one XLA FFT.  Computers are stateless; precomputed constant matrices
 (window, mel bank, DCT, lifter) are closed over as device constants.
@@ -131,8 +131,7 @@ class _SpectralBase:
 
         The frame count is padded to a 64-frame bucket before the jitted
         spectral pipeline so arbitrary utterance lengths reuse a handful
-        of compilations (compile time dominates on remote-compile TPU
-        setups); the pad is sliced off after."""
+        of compilations; the pad is sliced off after."""
         frames = self.frames(waveform, rng)
         T = frames.shape[0]
         if T == 0:

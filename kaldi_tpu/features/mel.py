@@ -2,7 +2,7 @@
 
 Parity target: src/feat/mel-computations.h — MelBanksOptions, MelBanks.
 The bank is materialised as a dense (num_bins, num_fft_bins) matrix so
-the mel projection on device is a single matmul onto the MXU (the
+the mel projection on device is a single matmul onto the matrix units (the
 reference iterates sparse triangles per bin on CPU; dense is the right
 layout for a systolic array — rows are ~97% zero but the matmul is
 trivially small next to the FFT).

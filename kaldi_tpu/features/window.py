@@ -6,7 +6,7 @@ exactly (snip-edges frame count, reflected padding when
 snip_edges=False, raw log-energy computed before pre-emphasis) so that
 features numerically match the reference pipeline.
 
-TPU-first design: framing is a strided gather done once per utterance
+Design: framing is a strided gather done once per utterance
 batch; everything downstream (pre-emphasis, window multiply, FFT, mel,
 DCT) operates on a dense (num_frames, padded_window_size) matrix so XLA
 fuses the elementwise stages into the FFT/matmul pipeline.

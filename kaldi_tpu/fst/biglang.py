@@ -31,7 +31,7 @@ constructed DIRECTLY, vectorized in numpy:
     impossible (the post-silence word-choice state has no SIL arc).
 
 Output is a decode-ready CsrGraph (fst/csr.py) — numpy arrays that
-upload straight to TPU HBM, never a Python object FST.
+upload straight to device memory, never a Python object FST.
 """
 
 from __future__ import annotations
@@ -1220,8 +1220,8 @@ def eps_precompose(g: CsrGraph) -> CsrGraph:
     """Eliminate ε arcs entirely by composing each emitting arc with
     the ε-closure of its destination, and folding ε-to-final paths
     into the final costs.  The decoder then runs ONE sweep per frame
-    (no ε sweeps at all) — the biggest per-frame cost on TPU, where
-    every sweep pays sorts + an arc gather.
+    (no ε sweeps at all) — every sweep pays sorts + an arc gather,
+    so ε sweeps were the biggest per-frame cost.
 
     Start-state ε paths become extra INITIAL tokens, recorded in
     CsrGraph.init_states/init_costs (the decoder's host-computed

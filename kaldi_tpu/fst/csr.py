@@ -3,7 +3,7 @@
 Parity target: the fork's CudaFst (src/cudadecoder/cuda-fst.h in the
 upstream descendant — CSR-packed HCLG resident in GPU memory, split
 into emitting and ε arc sets).  Here the pack is a set of numpy/jnp
-arrays resident in TPU HBM:
+arrays resident in device memory:
 
     emitting arcs:  e_offsets (S+1,), e_ilabel/e_nextstate (int32),
                     e_weight (f32), e_olabel (int32)

@@ -6,9 +6,9 @@ whose special arcs (ilabels ≥ the nonterminal offset, e.g.
 without rebuilding the big graph (the use case: per-user contact
 lists / dynamic phrases on a fixed LVCSR graph).
 
-TPU-native redesign: the reference expands nonterminals LAZILY inside
+Redesign: the reference expands nonterminals LAZILY inside
 its decoder (virtual states = (fst_instance, state)); lazy expansion
-is data-dependent control flow that cannot live inside a compiled TPU
+is data-dependent control flow that cannot live inside a compiled
 decode.  Instead the replacement is an EAGER ARRAY SPLICE over the
 CSR graph — pure numpy concatenation + index remapping, milliseconds
 even on 10⁶-state graphs — performed whenever a sub-graph changes.

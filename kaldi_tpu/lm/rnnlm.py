@@ -5,11 +5,11 @@ KaldiRnnlmDeterministicFst lattice-rescoring adapter — an on-demand
 deterministic FST over RNNLM states).  The reference trains with
 importance sampling to handle large vocabularies (rnnlm-get-sampling-lm
 estimates a proposal LM; rnnlm-train draws negative samples from it and
-importance-corrects the objective).  The TPU-native equivalent here is
+importance-corrects the objective).  The equivalent here is
 a sampled softmax: per step a shared candidate set is drawn by Gumbel
 top-k from a unigram-power proposal INSIDE the jit (no host round
 trip), and the output matmul runs over (K+1) gathered rows instead of
-V — turning the V-wide softmax into an MXU-friendly skinny matmul.
+V — turning the V-wide softmax into an matmul-friendly skinny matmul.
 Pass sample_k to train_rnnlm to enable; full softmax remains the
 default (and the test oracle) for small vocabularies.
 
@@ -192,12 +192,11 @@ class RnnLmScorer:
 
     def __init__(self, params, model: RnnLm, words: SymbolTable,
                  bos: str = "<s>", eos: str = "</s>",
-                 backend: Optional[str] = "cpu"):
-        """``backend``: where the single-token GRU step runs.  Lattice
-        rescoring issues ONE step per unique history — over a remote/
-        tunneled accelerator each step pays a full RPC round trip and
-        the rescore becomes latency-bound, so the tiny recurrent step
-        defaults to the host CPU (None = JAX default device)."""
+                 backend: Optional[str] = None):
+        """``backend``: the platform the single-token GRU step runs on
+        (e.g. "cpu"); None = the JAX default device.  Lattice rescoring
+        issues ONE step per unique history, so where the per-call
+        latency of the default device dominates, "cpu" can win."""
         self.params = params
         self.model = model
         self.words = words
@@ -210,15 +209,10 @@ class RnnLmScorer:
                                             token[None, None], carry)
             return jax.nn.log_softmax(logits[0, 0]), new_carry
 
+        # committed params carry the step to the chosen device
+        self._step = jax.jit(step)
         if backend is not None:
-            try:
-                dev = jax.devices(backend)[0]
-                self._step = jax.jit(step, device=dev)
-                self.params = jax.device_put(params, dev)
-            except Exception:       # pragma: no cover - no such backend
-                self._step = jax.jit(step)
-        else:
-            self._step = jax.jit(step)
+            self.params = jax.device_put(params, jax.devices(backend)[0])
 
     def _state_for(self, hist: Tuple[str, ...]):
         """(logprobs over next word, carry) after consuming hist."""

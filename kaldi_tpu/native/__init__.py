@@ -1,16 +1,18 @@
 """Native (C++) host-runtime components.
 
 The reference implements its host runtime — decoders' lattice passes,
-table I/O, graph build — in C++; the TPU build keeps the COMPUTE path
-in XLA/Pallas but implements the per-utterance host hot loops natively
-too.  Components are plain C-linkage shared objects loaded via ctypes
-(no pybind11 in this environment); each has a numpy reference
+table I/O, graph build — in C++; this framework keeps the COMPUTE path
+in XLA but implements the per-utterance host hot loops natively too.
+Components are plain C-linkage shared objects loaded via ctypes (no
+pybind11 in this environment); each has a numpy reference
 implementation that serves as both oracle (tests compare them) and
 fallback when no compiler is available.
 
 Build-on-demand: the .so is compiled with g++ -O3 on first use and
 cached next to the sources; set KALDI_TPU_NO_NATIVE=1 to force the
-numpy fallbacks.
+numpy fallbacks.  The fallback changes the host cost of every decode,
+so ``status()`` reports whether the library loaded and why not, for
+entry points that must refuse to run without it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -31,12 +33,14 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_ERROR = ""
 
 
 _SOURCES = ["lattice_build.cpp", "lattice_det.cpp"]
 
 
 def _build_and_load() -> Optional[ctypes.CDLL]:
+    global _ERROR
     srcs = [os.path.join(_DIR, s) for s in _SOURCES]
     so = os.path.join(_DIR, "libkaldi_tpu_native.so")
     if (not os.path.exists(so)
@@ -49,14 +53,15 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
                 check=True, capture_output=True, timeout=180)
             os.replace(so + ".tmp", so)
             log.info("native: compiled %s", os.path.basename(so))
-        except Exception as e:
-            log.warning("native: build failed (%s); using numpy fallback",
-                        e)
+        except (OSError, subprocess.SubprocessError) as e:
+            _ERROR = f"build failed: {e}"
+            log.warning("native: %s; using numpy fallback", _ERROR)
             return None
     try:
         return ctypes.CDLL(so)
     except OSError as e:
-        log.warning("native: load failed (%s); using numpy fallback", e)
+        _ERROR = f"load failed: {e}"
+        log.warning("native: %s; using numpy fallback", _ERROR)
         return None
 
 
@@ -71,6 +76,16 @@ def get_lib() -> Optional[ctypes.CDLL]:
             if _LIB is not None:
                 _bind(_LIB)
     return _LIB
+
+
+def status() -> Tuple[bool, str]:
+    """(loaded, reason): whether the native library is in use, and if
+    not, why (disabled by KALDI_TPU_NO_NATIVE, or the build/load
+    error)."""
+    if os.environ.get("KALDI_TPU_NO_NATIVE"):
+        return False, "disabled by KALDI_TPU_NO_NATIVE"
+    lib = get_lib()
+    return lib is not None, ("" if lib is not None else _ERROR)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

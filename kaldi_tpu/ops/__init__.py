@@ -1,14 +1,13 @@
-"""Pallas TPU kernels for the hot compute paths (SURVEY.md §7 step 10).
+"""Numerical building blocks shared by the trainers.
 
-These replace what the reference implements as CUDA kernels
-(src/cudamatrix/cu-kernels.cu, src/cudafeat/): the fused feature
-frontend and batched GMM log-likelihood evaluation.  Each kernel has an
-XLA-composed twin used as the correctness oracle and as the fallback on
-unsupported shapes.
+`natural_gradient` is the NG-SGD preconditioner of the reference's
+nnet3 trainer (src/nnet3/natural-gradient-online.h), as an optax
+transformation.  The feature frontend (features/compute.py) and the
+GMM likelihoods (am/gmm.py) are plain jax.numpy left to XLA; a
+hand-written kernel joins this package only where a GPU trace shows
+its stage hot and far from its roofline.
 """
 
-from kaldi_tpu.ops.pallas_gmm import gmm_loglikes_pallas, gmm_loglikes_xla
-from kaldi_tpu.ops.pallas_frontend import fbank_pallas, fbank_xla
+from kaldi_tpu.ops.natural_gradient import ngsgd
 
-__all__ = ["gmm_loglikes_pallas", "gmm_loglikes_xla",
-           "fbank_pallas", "fbank_xla"]
+__all__ = ["ngsgd"]

@@ -9,11 +9,11 @@ Fisher/covariance matrix F ≈ U diag(d) Uᵀ + ρ(I − U Uᵀ), and
 preconditions update directions X by a smoothed inverse of F with a
 rescaling γ that preserves the update magnitude.
 
-TPU-native redesign: instead of the reference's in-place iterative
+Redesign: instead of the reference's in-place iterative
 update, the estimate is advanced by one step of SUBSPACE (power)
 ITERATION followed by Rayleigh–Ritz extraction — all fixed-shape
 matmuls + one tiny (R×R) eigendecomposition, so the whole transform
-jits and runs on the MXU.  Mathematically both track the top-R
+jits and runs on the matrix units.  Mathematically both track the top-R
 eigenspace of the exponential-moving-average covariance; the trace is
 preserved exactly so ρ absorbs the mass outside the subspace, as in
 the reference.

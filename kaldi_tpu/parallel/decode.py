@@ -5,11 +5,11 @@ Parity target: the reference's decode-time parallelism — steps/decode.sh
 and the BASELINE.json north-star config 5 ('multi-host pod decode:
 eval sharded across hosts').
 
-TPU-native shape: the utterance batch is sharded over the mesh 'data'
-axis; the graph arrays are replicated into every chip's HBM (they are
+Shape: the utterance batch is sharded over the mesh 'data' axis; the
+graph arrays are replicated into every device's memory (they are
 read-only decode state, the CudaFst residency model); the whole
 batch-decode scan runs under one jit, XLA partitioning the vmapped
-scan across chips with no collectives in the steady state (per-utterance
+scan across devices with no collectives in the steady state (per-utterance
 beams are independent, matching Kaldi's per-process semantics).  On a
 multi-host pod the same code runs under jax.distributed.initialize
 with a global mesh — each host feeds its local shard.
@@ -79,7 +79,7 @@ class ShardedDecoder:
 class ShardedBeamDecoder:
     """Data-parallel LARGE-GRAPH lattice decode on a mesh: the
     utterance batch is sharded over 'data', the packed CSR arc table
-    is replicated into every chip's HBM (the multi-lane CudaFst
+    is replicated into every device's memory (the multi-lane CudaFst
     residency), and each shard runs the sort-recombination scan
     independently — no collectives in the steady state, matching the
     reference's per-process decode semantics at pod scale
@@ -91,6 +91,15 @@ class ShardedBeamDecoder:
         self.dec = decoder
         self.mesh = mesh
         self._jit = None
+        self._g = None
+
+    def graph_arrays(self):
+        """The packed graph, replicated onto every device of the mesh
+        (uploaded once, on first use)."""
+        if self._g is None:
+            self._g = jax.device_put(self.dec._g_host,
+                                     NamedSharding(self.mesh, P()))
+        return self._g
 
     def _build(self):
         batch_sh = NamedSharding(self.mesh, P("data"))
@@ -105,7 +114,9 @@ class ShardedBeamDecoder:
                              stats: Optional[dict] = None):
         """(B, T_pad, P) → determinized CompactLattices (fused native
         build+determinize per utterance on host).  B is padded up to a
-        multiple of the data-axis size.  The BeamDecoder's
+        multiple of the data-axis size.  ``stats`` also receives
+        ``out_devices``, the number of devices the decode ran on.  The
+        BeamDecoder's
         demand-triggered escalation policy (escalate_budget) is
         honored: flagged utterances re-decode single-device at the
         wider budget — retries are rare by design, so they don't
@@ -123,9 +134,11 @@ class ShardedBeamDecoder:
             lens = np.concatenate(
                 [lens, np.ones(pad_b, num_frames.dtype)])
         with self.mesh:
-            out = self._jit(self.dec._graph_arrays(),
+            out = self._jit(self.graph_arrays(),
                             jnp.asarray(X, jnp.float32),
                             jnp.asarray(lens, jnp.int32))
+        if stats is not None:
+            stats["out_devices"] = len(out["bt_aidx"].sharding.device_set)
         hosts = self.dec._fetch_batch(out, B, lattice=True)
         lats = []
         for b in range(B):
@@ -164,7 +177,7 @@ class ShardedBeamDecoder:
             batch_sh, np.ascontiguousarray(lens_local, np.int32),
             (Bl * nproc,))
         with self.mesh:
-            out = self._jit(self.dec._graph_arrays(), X, lens)
+            out = self._jit(self.graph_arrays(), X, lens)
 
         def local_rows(leaf):
             shards = sorted(leaf.addressable_shards,

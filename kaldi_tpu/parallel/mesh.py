@@ -8,7 +8,7 @@ Axes:
 
 Rules follow the scaling-book recipe: annotate shardings on params and
 batches, let XLA insert the collectives (psum for grad reduction rides
-ICI automatically under jit).
+the interconnect automatically under jit).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def batch_sharding(mesh: Mesh) -> NamedSharding:
 
 
 def model_sharding_rules(path_names: Sequence[str]) -> P:
-    """PartitionSpec for a param identified by its flax path.
+    """PartitionSpec for a param identified by its tree path.
 
     Dense kernels (in, out) shard the output features over 'model'
     (column parallelism); biases/batch-norm stats replicate.  The
@@ -57,7 +57,7 @@ def model_sharding_rules(path_names: Sequence[str]) -> P:
 
 
 def shard_params(params, mesh: Mesh):
-    """Apply model_sharding_rules across a flax param pytree."""
+    """Apply model_sharding_rules across a param pytree."""
     def spec_for(path):
         names = [getattr(p, "key", getattr(p, "name", "")) for p in path]
         return NamedSharding(mesh, model_sharding_rules(names))

@@ -4,7 +4,7 @@ Parity target: steps/nnet3/chain/train.py + nnet3-chain-train
 (SURVEY.md §3.4): egs preparation from GMM alignments, denominator
 phone-LM graph, minibatch training.
 
-TPU-first: one pjit-compiled train step over a (data, model) mesh —
+One jit-compiled train step over a (data, model) mesh —
 batch sharded on 'data', TDNN kernels optionally sharded on 'model';
 gradient psum is inserted by XLA.  This replaces the reference's
 N-jobs-with-model-averaging outer loop with true synchronous
@@ -21,7 +21,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.core import FrozenDict
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from kaldi_tpu.core.logging import KaldiError, get_logger
@@ -263,7 +262,7 @@ class ChainTrainer:
                  cfg: ChainTrainConfig = None, mesh: Optional[Mesh] = None,
                  seed: int = 0):
         """`model_cfg` is either a TdnnConfig (builds the native
-        TdnnChain) or any flax module with the chain model contract —
+        TdnnChain) or any module with the chain model contract —
         apply(vars, (B,T,feat_dim), train=) → (B, T//sub, num_pdfs)
         scores and a `feat_dim` attribute (e.g. xconfig-defined models,
         am/xconfig.chain_model_from_xconfig)."""
@@ -276,7 +275,7 @@ class ChainTrainer:
         dummy = jnp.zeros((2, 32, model_cfg.feat_dim))
         variables = self.model.init(rng, dummy, train=False)
         self.params = variables["params"]
-        self.batch_stats = variables.get("batch_stats", FrozenDict())
+        self.batch_stats = variables.get("batch_stats", {})
         self._build_tx(self.cfg.total_steps or 0)
         if mesh is not None:
             self.params = shard_params(self.params, mesh)

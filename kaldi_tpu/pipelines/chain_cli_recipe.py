@@ -2,7 +2,7 @@
 ark/scp artifacts between every stage.
 
 Parity target: the egs/wsj/s5/steps/nnet3/chain/train.py stage
-contract (VERDICT r2 #6): every processing step below is a
+contract: every processing step below is a
 `kaldi_tpu.cli` TOOLS invocation reading and writing disk artifacts —
 exactly the boundary a user scripting the framework sees.  Python
 code only synthesizes the corpus (local/ data prep, as in

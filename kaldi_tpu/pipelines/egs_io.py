@@ -7,7 +7,7 @@ nnet3-chain-shuffle-egs between (src/nnet3bin/).  Training examples
 live ON DISK between the egs stage and the train stage; that stage
 boundary is the thing to keep.
 
-TPU-first redesign: one archive entry = one fixed-size chunk carrying
+Redesign: one archive entry = one fixed-size chunk carrying
 the dense arrays ChainTrainer consumes directly — feats, the
 fixed-path pdf alignment + mask, and the flexible-boundary supervision
 segments with their normalization weights (the role of the reference's

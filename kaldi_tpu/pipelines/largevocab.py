@@ -87,7 +87,7 @@ def make_largevocab_task(vocab_size: int = 20000,
     LEFT-BIPHONE (2,1) decision tree from synthetic context-shifted
     stats and dispatches the graph build through biglang's
     context-dependent construction, so the large-vocab bench can run
-    a CD graph (VERDICT r4 next #1c)."""
+    a CD graph."""
     timer = Timer()
     rng = np.random.default_rng(seed)
     if entries is None:
@@ -286,7 +286,7 @@ def main(argv=None):
     po.register("context", str, "mono",
                 "acoustic context: mono | biphone (CD graph)")
     po.read(argv)
-    wer, tput = run(vocab=po["vocab"], n_utts=po["num-utts"],
+    wer, _rate = run(vocab=po["vocab"], n_utts=po["num-utts"],
                     noise=po["noise"], beam=po["beam"],
                     max_active=po["max-active"], context=po["context"])
     print(wer)

@@ -4,7 +4,7 @@ Parity target: egs/wsj/s5/steps/train_mono.sh driving gmm-init-mono,
 compile-train-graphs, align-equal-compiled, gmm-acc-stats-ali,
 gmm-est, gmm-align-compiled (SURVEY.md §3.1 call stack).
 
-TPU-first shape: per-iteration work is two batched device programs —
+Shape: per-iteration work is two batched device programs —
 (a) GMM log-likelihood evaluation + dense Viterbi alignment over all
 utterances, (b) sufficient-stat accumulation via segment-sums — with
 host-side MLE updates.  Stats across data shards combine by addition

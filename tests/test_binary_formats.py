@@ -3,7 +3,7 @@ nnet3 model files.
 
 Oracles: write→read round-trips (byte verification against real
 upstream artifacts is pending a populated reference mount —
-SURVEY.md §0); decode-equivalence after an FST round-trip; flax
+SURVEY.md §0); decode-equivalence after an FST round-trip; TDNN-F
 score equality after an nnet3 export→import cycle.
 """
 
@@ -132,7 +132,7 @@ def test_compressed_matrix_outliers(rng):
 
 
 def test_nnet3_roundtrip_scores(rng, tmp_path):
-    """Export flax TDNN-F to an nnet3 .raw file, read it back, and
+    """Export TDNN-F to an nnet3 .raw file, read it back, and
     verify identical scores."""
     import jax
     import jax.numpy as jnp

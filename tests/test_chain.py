@@ -19,6 +19,7 @@ from kaldi_tpu.am.chain import (
     denominator_logprob,
     make_denominator_graph,
     numerator_logprob,
+    numpy_den_forward,
 )
 from kaldi_tpu.am.tdnn import TdnnChain, TdnnConfig, semi_orthogonal_penalty
 from kaldi_tpu.am.topology import HmmTopology
@@ -51,37 +52,11 @@ def _tiny_den():
     )
 
 
-def _numpy_den_forward(den, scores):
-    """Brute-force log-space forward oracle (frame 0 allows both the
-    self-loop continuation pdf and the entry/forward pdf)."""
-    B, T, P = scores.shape
-    S = den.num_states
-    self_pdf = np.zeros(S, np.int32)
-    entry_pdf = np.zeros(S, np.int32)
-    for a in range(len(den.src)):
-        if den.src[a] == den.dst[a]:
-            self_pdf[den.src[a]] = den.pdf[a]
-        else:
-            entry_pdf[den.dst[a]] = den.pdf[a]
-    out = np.zeros(B)
-    for b in range(B):
-        alpha = den.initial + np.logaddexp(scores[b, 0, self_pdf],
-                                           scores[b, 0, entry_pdf])
-        for t in range(1, T):
-            new = np.full(S, -np.inf)
-            for a in range(len(den.src)):
-                v = alpha[den.src[a]] + den.logw[a] + scores[b, t, den.pdf[a]]
-                new[den.dst[a]] = np.logaddexp(new[den.dst[a]], v)
-            alpha = new
-        out[b] = np.logaddexp.reduce(alpha + den.final)
-    return out
-
-
 def test_denominator_matches_numpy_oracle(rng):
     den = _tiny_den()
     scores = rng.standard_normal((3, 7, 4)).astype(np.float32)
     got = np.asarray(denominator_logprob(den, jnp.asarray(scores)))
-    ref = _numpy_den_forward(den, scores)
+    ref = numpy_den_forward(den, scores)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -252,8 +227,8 @@ def test_denominator_mask_equals_truncation(rng):
     mask[1, 7:] = False
     got = np.asarray(denominator_logprob(den, jnp.asarray(scores),
                                          mask=jnp.asarray(mask)))
-    ref0 = _numpy_den_forward(den, scores[:1, :5])[0]
-    ref1 = _numpy_den_forward(den, scores[1:, :7])[0]
+    ref0 = numpy_den_forward(den, scores[:1, :5])[0]
+    ref1 = numpy_den_forward(den, scores[1:, :7])[0]
     np.testing.assert_allclose(got, [ref0, ref1], rtol=1e-4, atol=1e-4)
 
 
@@ -458,7 +433,7 @@ def test_chain_trainer_ngsgd_step(rng):
 def test_denominator_dense_matches_scatter():
     """The dense (S,S)-matmul denominator recursion must equal the
     scatter segment-op formulation in value AND gradient (the dense
-    path is the TPU fast path; scatter is the oracle)."""
+    path is the fast path; scatter is the oracle)."""
     import jax
     import jax.numpy as jnp
     from kaldi_tpu.am.chain import denominator_logprob

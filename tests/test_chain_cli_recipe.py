@@ -1,4 +1,4 @@
-"""Chain recipe through the CLI tool layer only (VERDICT r2 #6):
+"""Chain recipe through the CLI tool layer only:
 every stage a TOOLS call with ark/scp artifacts between — egs
 extraction → nnet3-chain-train → compile-graph → nnet3-latgen-faster
 → scoring.  Plus the jobs.py failure-detection/stage-guard layer."""

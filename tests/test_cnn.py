@@ -83,7 +83,7 @@ output-layer name=output dim=20 include-log-softmax=false
 
 
 def test_tdnn_bfloat16_compute_matches_f32():
-    """compute_dtype="bfloat16" runs the MXU fast path with params in
+    """compute_dtype="bfloat16" runs the half-precision matmul path with params in
     f32: outputs stay close to the f32 reference and argmax rarely
     moves (mixed-precision inference contract)."""
     import jax

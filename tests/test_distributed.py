@@ -29,7 +29,6 @@ def test_two_process_psum(tmp_path):
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["JAX_PLATFORMS"] = "cpu"
-    env["KALDI_TPU_PLATFORM"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     procs = []
     for pid in range(2):
@@ -55,8 +54,8 @@ def test_two_process_psum(tmp_path):
     assert int(r0["ndev"]) == 4          # 2 processes × 2 devices
     # sharded lattice decode: each process decoded its OWN shard of
     # the global batch on the global mesh and verified every lattice
-    # against a single-device decode in-process (VERDICT r3 missing
-    # #5: the DCN analogue of the dryrun's multi-device equality)
+    # against a single-device decode in-process (the multi-host
+    # analogue of the dryrun's multi-device equality)
     for r in (r0, r1):
         assert int(r["decode_ok"]) == 1
         assert int(r["n_lats"]) == 4     # 2 rows × 2 local devices

@@ -1,7 +1,7 @@
 """Demand-triggered escalation (BeamDecoderConfig.escalate_budget).
 
 The retry-with-wider-beam contract (ref: src/decoder/decoder-wrappers.h
-DecodeUtteranceLatticeFaster) applied to the TPU decoder's arc budget:
+DecodeUtteranceLatticeFaster) applied to the BeamDecoder's arc budget:
 an utterance whose accumulated beam deficit — Σ_t max(0, lattice_beam −
 eff_beam_t) — exceeds escalate_deficit is RE-DECODED at the escalated
 budget.  The policy must be honored by every lattice-decode API
@@ -223,8 +223,8 @@ def test_escalator_capacity_grows_with_lattice_arcs(task):
 
 
 def test_latgen_cli_options():
-    """The latgen tools expose the budget/escalation knobs (VERDICT r3
-    weak #1: quality-safe defaults must be reachable from the CLI)."""
+    """The latgen tools expose the budget/escalation knobs (quality-safe
+    defaults must be reachable from the CLI)."""
     from kaldi_tpu.cli.tools import latgen_kwargs, register_latgen_opts
     from kaldi_tpu.core.options import ParseOptions
     po = ParseOptions("test")

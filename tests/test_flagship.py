@@ -3,7 +3,7 @@ LM headroom, scaled best-path sweep, difference-LM pruned rescoring.
 
 (The full system build — audio → GMM → chain → large-vocab decode →
 4-gram rescore — runs as `python -m kaldi_tpu.pipelines.flagship`; its
-RESULTS land in HARDBENCH_r04.  These tests pin the pieces cheap
+RESULTS are JSON lines.  These tests pin the pieces cheap
 enough for CI.)
 """
 

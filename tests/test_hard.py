@@ -3,7 +3,7 @@ oracle/depth lattice statistics (lattice/functions.py).
 
 Parity: latbin/lattice-oracle.cc (min edit distance over lattice
 paths), latbin/lattice-depth.cc (arc-frames per frame), and the
-VERDICT r2 #1 acceptance contract: nonzero 1-best WER with oracle WER
+acceptance contract: nonzero 1-best WER with oracle WER
 ≤ 1-best WER.
 """
 

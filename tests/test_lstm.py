@@ -70,7 +70,7 @@ def test_lstm_gradients_flow(model_and_params, rng):
 def test_restricted_attention_band(rng):
     """Attention outside the context band must have zero influence."""
     import flax.linen as nn
-    from kaldi_tpu.am.tdnn import RestrictedAttentionLayer
+    from kaldi_tpu.am.xconfig import RestrictedAttentionLayer
     layer = RestrictedAttentionLayer(dim=8, num_heads=2, left_ctx=2,
                                      right_ctx=2)
     x = jnp.asarray(rng.standard_normal((1, 20, 8)).astype(np.float32))

@@ -64,7 +64,7 @@ def _phone_arcs(out, tm):
 
 def test_phone_spanning_two_arcs_emits_one_arc(tm):
     """A phone split across an input-arc boundary must come out as ONE
-    arc, not two partial arcs (the ADVICE r2 finding)."""
+    arc, not two partial arcs (a past bug)."""
     tids = _phone_tids(tm, 1, 6)
     clat = CompactLattice()
     s0, s1, s2 = (clat.add_state() for _ in range(3))

@@ -51,3 +51,36 @@ def test_parse_rejects_garbage(tmp_path):
 
 def test_empty_profile_total():
     assert OpProfile().total_ms() == 0.0
+
+
+def test_default_reads_gpu_stream_lines():
+    """A GPU trace has no 'XLA Ops' line: its device plane holds one
+    line per CUDA stream, and those are the device op lines.  Host
+    planes never count as device time."""
+    prof = OpProfile()
+    prof.planes = {
+        "/device:GPU:0": {
+            "Stream #13(Compute)": {"loop_add_fusion": [3_000_000_000, 3],
+                                    "sort_6_1": [1_000_000_000, 1]},
+            "Stream #14(MemcpyD2H)": {"memcpy128": [500_000_000, 2]},
+        },
+        "/host:CPU": {"python": {"PjitFunction(f)": [9_000_000_000, 6]}},
+    }
+    ops = prof.ops()
+    assert [o[0] for o in ops] == ["loop_add_fusion", "sort_6_1",
+                                   "memcpy128"]
+    assert ops[0][1] == 3.0 and ops[0][2] == 3
+    assert prof.total_ms() == 4.5
+    # "" still reads every parsed line, host included
+    assert prof.total_ms(line_filter="") == 13.5
+
+
+def test_default_prefers_xla_ops_line():
+    """Where a device plane carries an 'XLA Ops' line beside summary
+    lines, only that line is read."""
+    prof = OpProfile()
+    prof.planes = {"/device:X:0": {
+        "XLA Modules": {"jit_step": [5_000_000_000, 1]},
+        "XLA Ops": {"fusion.1": [2_000_000_000, 4]},
+    }}
+    assert prof.ops() == [("fusion.1", 2.0, 4)]
